@@ -1,20 +1,20 @@
-"""nextpolish_tpu — a TPU-native genome-polishing framework.
+"""nextpolish_tpu — a JAX genome-polishing framework.
 
 A from-scratch reimplementation of the capabilities of NextPolish
-(Nextomics/NextPolish) designed for TPU hardware:
+(Nextomics/NextPolish) as JAX tensor programs for an accelerator:
 
 * the short-read (SGS) polishing engine — score-chain Viterbi + k-mer vote —
   is reformulated as dense tensor programs: pileups become count tensors,
   the score chain becomes a tropical ((max,+)) matrix scan executed with
   ``jax.lax.associative_scan`` so a whole genome window is corrected in
-  log-depth on the VPU/MXU instead of a sequential pointer-chasing DP;
+  log-depth instead of a sequential pointer-chasing DP;
 * the long-read / HiFi consensus engine (``ctg_cns``) becomes a batched
   (position, delta, base) lattice DP over windows;
 * parallelism is expressed with ``jax.sharding`` over device meshes
   (windows are the batch axis; pileup merges are ``psum`` collectives)
   instead of cluster job files.
 
-Layer map (mirrors SURVEY.md §1 of the reference, re-drawn TPU-first):
+Layer map (mirrors SURVEY.md §1 of the reference):
 
     pipeline   driver: config -> rounds -> stages          (pipeline.py, cli.py)
     runtime    local scheduler, retries, resume            (runtime/)
@@ -28,20 +28,23 @@ Layer map (mirrors SURVEY.md §1 of the reference, re-drawn TPU-first):
 
 __version__ = "0.1.0"
 
-# Persistent XLA compilation cache: the chain-scan jits are expensive to
-# compile (minutes on TPU); cache them across processes.  Harmless on CPU.
 import os as _os
 
-if not _os.environ.get("NPT_NO_JIT_CACHE"):
-    try:
-        import jax as _jax
+# the one place the persistent XLA compilation cache is configured:
+# JAX_COMPILATION_CACHE_DIR wins when set (JAX reads it itself); otherwise
+# a fixed directory inside the checkout, so every process of one checkout
+# shares it and nothing is written outside the checkout
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
 
-        _cache = _os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            _os.path.join(_os.path.expanduser("~"), ".cache",
-                          "nextpolish_tpu_xla"))
-        _os.makedirs(_cache, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:  # jax config may predate these options
-        pass
+
+def _configure_compile_cache() -> None:
+    import jax
+
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+
+
+_configure_compile_cache()

@@ -13,7 +13,7 @@ from .kit import plog
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="nextpolish_tpu",
-        description="TPU-native genome polishing (NextPolish capabilities).",
+        description="Genome polishing on JAX devices (NextPolish capabilities).",
     )
     parser.add_argument("config", help="run.cfg configuration file")
     parser.add_argument("-l", "--log", default=None, help="log file")

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import os
 import struct
+import threading
 import zlib
 from collections import OrderedDict
 
@@ -77,6 +78,9 @@ class IndexedBam:
         self._fh = open(path, "rb")
         self._size = os.fstat(self._fh.fileno()).st_size
         self._cache: OrderedDict[int, tuple[bytes, int]] = OrderedDict()
+        # the file position and block cache are shared: contig pipelines
+        # fetch from several threads at once
+        self._lock = threading.Lock()
         self.header, self._first_voff = self._read_header()
         bai_path = bai_path or path + ".bai"
         self._bai = read_bai(bai_path) if os.path.exists(bai_path) else None
@@ -88,6 +92,10 @@ class IndexedBam:
     def _block(self, coffset: int) -> tuple[bytes, int]:
         """Decompressed payload of the block at compressed offset, plus
         the next block's compressed offset."""
+        with self._lock:
+            return self._block_locked(coffset)
+
+    def _block_locked(self, coffset: int) -> tuple[bytes, int]:
         hit = self._cache.get(coffset)
         if hit is not None:
             self._cache.move_to_end(coffset)

@@ -2,15 +2,16 @@
 
 The reference submits its jobs through Paralleltask to a local shell or
 an SGE/PBS/SLURM cluster (source/nextPolish:396-521, doc/OPTION.rst:75-113).
-The TPU-native equivalent is one `python -m nextpolish_tpu run.cfg`
-process per host coordinated over jax.distributed (parallel/hosts.py);
-this launcher is the piece that *starts* those processes:
+The JAX equivalent is one `python -m nextpolish_tpu run.cfg` process per
+host (or per local GPU) coordinated over jax.distributed
+(parallel/hosts.py); this launcher is the piece that *starts* those
+processes:
 
-    # local N-process run (testing / single machine):
+    # local N-process run, one process per local GPU:
     python -m nextpolish_tpu.launch --nprocs 2 run.cfg
 
     # ssh to a host list (first host is the coordinator):
-    python -m nextpolish_tpu.launch --hosts tpu-a,tpu-b run.cfg
+    python -m nextpolish_tpu.launch --hosts node-a,node-b run.cfg
 
     # inside a SLURM allocation (uses srun; ranks come from SLURM_PROCID):
     python -m nextpolish_tpu.launch --slurm --nprocs 2 run.cfg
@@ -42,12 +43,25 @@ def _worker_cmd(cfg: str) -> list[str]:
     return [sys.executable, "-m", "nextpolish_tpu", cfg]
 
 
+def local_rank_env(rank: int, nprocs: int, base_env: dict) -> dict:
+    """Environment of local rank `rank`: it sees exactly one GPU, the
+    rank-th of CUDA_VISIBLE_DEVICES (default: card `rank`), because a JAX
+    process reserves most of every card it can see."""
+    visible = base_env.get("CUDA_VISIBLE_DEVICES")
+    ids = visible.split(",") if visible else [str(i) for i in range(nprocs)]
+    if nprocs > len(ids):
+        raise ValueError(f"{nprocs} processes but only {len(ids)} visible "
+                         f"devices (CUDA_VISIBLE_DEVICES={visible})")
+    return {"CUDA_VISIBLE_DEVICES": ids[rank]}
+
+
 def launch_local(cfg: str, nprocs: int, base_env: dict) -> int:
     coord = f"127.0.0.1:{_free_port()}"
     procs = []
     for rank in range(nprocs):
         env = dict(base_env, NPT_COORDINATOR=coord,
-                   NPT_NUM_PROCS=str(nprocs), NPT_PROC_ID=str(rank))
+                   NPT_NUM_PROCS=str(nprocs), NPT_PROC_ID=str(rank),
+                   **local_rank_env(rank, nprocs, base_env))
         procs.append(subprocess.Popen(_worker_cmd(cfg), env=env))
     # wait on EVERY process (no short-circuit): all ranks must be reaped
     # even after an early failure, and the first nonzero code wins

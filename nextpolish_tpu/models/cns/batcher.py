@@ -2,12 +2,13 @@
 
 The reference fills its machine by giving every worker process one window
 at a time (lib/nextpolish2.py:67-90, the window loop at
-lib/ctg_cns.c:3455-3594); the TPU analog is filling each pallas launch
-with B windows (pallas_scan.py).  A single contig under ~5 Mb only has
-ONE window, so per-contig dispatch leaves the batch axis empty — this
-module shares one batcher across every contig in flight: producer threads
-(pipelined contigs) prep windows and `submit` them, and groups of B
-windows — from ANY mix of contigs — leave in one launch.
+lib/ctg_cns.c:3455-3594); the device analog is filling each level-scan
+launch with B windows (one kernel program each, pallas_scan.py).  A
+single contig under ~5 Mb only has ONE window, so per-contig dispatch
+leaves the batch axis empty — this module shares one batcher across
+every contig in flight: producer threads (pipelined contigs) prep windows
+and `submit` them, and groups of B windows — from ANY mix of contigs —
+leave in one launch.
 
 Dispatch policy: a full group dispatches on the spot; partial groups wait
 while any producer is still prepping (it will fill the batch) and flush
@@ -15,45 +16,36 @@ as soon as every in-flight producer is blocked waiting or done, so no
 batching deadline is needed and no deadlock is possible.  Results are
 independent of grouping (the kernel is bit-exact per window for every
 E/Vb/B bucket), so polished output does not depend on contig scheduling.
+A device failure raises out of `collect`; nothing falls back silently.
 """
 from __future__ import annotations
 
 import threading
+from collections import Counter
 
 from .device_dp import (
+    B_MAX,
     MAX_E,
-    _collect_batch_pallas,
-    _dispatch_batch_pallas,
-    _pallas_ok,
-    _run_batch,
+    _collect_batch,
+    _dispatch_batch,
     _to_edge_outputs,
-    _use_pallas,
 )
-from .pallas_scan import MAX_PALLAS_E
 
 
 class _Group:
     """One dispatched batch of dense windows; first waiter collects."""
 
-    def __init__(self, dws, read_type, use_pallas):
+    def __init__(self, dws, read_type, devices):
         self.dws = dws
-        self.read_type = read_type
         self.lock = threading.Lock()
         self.results = None
-        self.pend = None
-        if use_pallas:
-            self.pend = _dispatch_batch_pallas(dws, read_type)
+        self.pend = _dispatch_batch(dws, read_type, devices=devices)
 
     def collect(self):
         with self.lock:
             if self.results is None:
-                if self.pend is not None:
-                    self.results = _collect_batch_pallas(self.pend,
-                                                         sc_tail=True)
-                    self.pend = None
-                else:
-                    self.results = _run_batch(self.dws, self.read_type,
-                                              sc_tail=True)
+                self.results = _collect_batch(self.pend)
+                self.pend = None
         return self.results
 
 
@@ -78,9 +70,15 @@ class _Fut:
 class CnsBatcher:
     """Shared window-DP batcher; one per polishing run (thread-safe)."""
 
-    def __init__(self, read_type: str, max_batch: int | None = None):
-        from .device_dp import B_MAX
+    def __init__(self, read_type: str, max_batch: int | None = None,
+                 devices=None):
+        """`devices`: where window groups run, one group per launch in
+        turn (default: every local device, runtime.devices.compute_devices).
+        """
+        from ...runtime.devices import compute_devices
 
+        self.devices = list(devices or compute_devices())
+        self.launches = Counter()  # device -> groups dispatched there
         self.read_type = read_type
         self.B = max_batch or B_MAX
         self.cond = threading.Condition()
@@ -97,8 +95,7 @@ class CnsBatcher:
     def submit(self, dw):
         """Queue a DenseWindow (or None) for the next device launch."""
         fut = _Fut(self)
-        if dw is None or dw.E > MAX_E or (
-                _use_pallas() and dw.E > MAX_PALLAS_E):
+        if dw is None or dw.E > MAX_E:
             fut.ready = True  # host fallback (result None)
             return fut
         with self.cond:
@@ -113,7 +110,10 @@ class CnsBatcher:
             batch = self.pending[:self.B]
             del self.pending[:len(batch)]
             dws = [dw for dw, _ in batch]
-            g = _Group(dws, self.read_type, _pallas_ok(dws))
+            dev = self.devices[sum(self.launches.values())
+                               % len(self.devices)]
+            self.launches[dev] += 1
+            g = _Group(dws, self.read_type, [dev])
             for i, (_, f) in enumerate(batch):
                 f.group = g
                 f.idx = i

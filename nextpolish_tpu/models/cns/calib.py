@@ -1,18 +1,19 @@
 """Measurement-driven consensus-engine selection.
 
-The device engine's end-to-end rate depends on the host<->device link
-(PCIe on production hosts, a slow tunnel on some dev rigs) and the host
-C++ engine's rate on the local cores — neither is knowable a priori, and
-defaulting to a slower path costs users real time (the reference likewise
-sizes its process count to the machine it finds, lib/nextpolish2.py:67-90).
+The device engine's end-to-end rate depends on the device and its host
+link, and the host C++ engine's rate on the local cores — neither is
+knowable a priori, and defaulting to a slower path costs users real time
+(the reference likewise sizes its process count to the machine it finds,
+lib/nextpolish2.py:67-90).
 
 `choose_engine` times BOTH engines on one synthetic probe window (device:
 a full B-wide batched launch incl. pack/transfer/fetch; native: per-core
 serial rate scaled by the thread-pipeline width) and picks the faster,
 logging the measured rates.  The decision caches in-process and in a
-small JSON file (NPT_CNS_CALIB, default /tmp/npt_cns_calib.json) keyed by
-backend + device kind + read type, so repeated worker processes skip the
-probe.  NPT_CNS_ENGINE always wins (handled by window.default_engine)."""
+small JSON file (NPT_CNS_CALIB, default cns_calib.json in the checkout's
+.jax_cache) keyed by backend + device kind + read type, so repeated
+worker processes skip the probe.  A failing device probe raises.
+NPT_CNS_ENGINE always wins (handled by window.default_engine)."""
 from __future__ import annotations
 
 import json
@@ -25,14 +26,15 @@ PROBE_LEN = 12_000
 PROBE_COV = 30
 
 
-def _probe_window(read_type: str):
+def _probe_window(read_type: str, length: int = PROBE_LEN,
+                  seed: int = 12345):
     """Synthetic window: noisy reads over a random draft, expanded to tag
     columns exactly as the production path would (expand_columns)."""
     from .tags import WindowAccum, expand_columns, trim_read_columns
 
-    rng = np.random.default_rng(12345)
+    rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    L = PROBE_LEN
+    L = length
     draft = rng.choice(bases, L)
     accum = WindowAccum(draft, 0, L, 3)
     n_reads = PROBE_COV * L // 3000
@@ -75,34 +77,35 @@ def _probe_window(read_type: str):
 
 
 def _cache_path() -> str:
-    return os.environ.get("NPT_CNS_CALIB", "/tmp/npt_cns_calib.json")
+    from ... import CACHE_DIR
+
+    return os.environ.get("NPT_CNS_CALIB",
+                          os.path.join(CACHE_DIR, "cns_calib.json"))
 
 
 # bump when either engine's performance characteristics change, so a
 # cached decision from an older build re-probes instead of going stale
-CALIB_VERSION = 2
+CALIB_VERSION = 3
 
 
 def _cache_key(read_type: str) -> str:
-    try:
-        import jax
+    import jax
 
-        dev = jax.devices()[0]
-        return (f"v{CALIB_VERSION}/{jax.default_backend()}/"
-                f"{dev.device_kind}/{read_type}")
-    except Exception:
-        return f"v{CALIB_VERSION}/unknown/{read_type}"
+    dev = jax.devices()[0]
+    return (f"v{CALIB_VERSION}/{jax.default_backend()}/"
+            f"{dev.device_kind}/{read_type}")
 
 
 def choose_engine(read_type: str) -> str:
     """'device' or 'native', measured (cached across processes)."""
     key = _cache_key(read_type)
     try:
-        cached = json.load(open(_cache_path()))
-        if key in cached:
-            return cached[key]["engine"]
-    except Exception:
+        with open(_cache_path()) as fh:
+            cached = json.load(fh)
+    except (OSError, ValueError):  # no cache yet, or a torn write
         cached = {}
+    if key in cached:
+        return cached[key]["engine"]
 
     rates = measure_engines(read_type)
     eng = "device" if rates["device"] >= rates["native"] else "native"
@@ -111,23 +114,21 @@ def choose_engine(read_type: str) -> str:
     plog().info(
         f"cns engine auto-selected '{eng}': device "
         f"{rates['device'] / 1e3:.0f}k bases/s vs native "
-        f"{rates['native'] / 1e3:.0f}k bases/s on this host/link "
-        f"({key})")
+        f"{rates['native'] / 1e3:.0f}k bases/s on this host ({key})")
     cached[key] = {"engine": eng,
                    "device_bases_per_s": round(rates["device"], 1),
                    "native_bases_per_s": round(rates["native"], 1)}
-    try:
-        with open(_cache_path(), "w") as fh:
-            json.dump(cached, fh, indent=1)
-    except OSError:
-        pass
+    path = _cache_path()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(cached, fh, indent=1)
     return eng
 
 
 def measure_engines(read_type: str) -> dict:
     """Probe rates in draft bases/s for the device path (one B-wide
     batched launch, pack+transfer+scan+fetch) and the native host engine
-    (per-core serial x pipeline width)."""
+    (per-core serial x pipeline width).  Device failures propagate."""
     from ... import native
     from . import device_dp as dd
 
@@ -146,25 +147,22 @@ def measure_engines(read_type: str) -> dict:
     width = min(2, os.cpu_count() or 1)
     rate_native = L / t_n * width if t_n < float("inf") else 0.0
 
-    # ---- device (batched pallas incl. transfers) ----
+    # ---- device (one B_MAX-wide batched launch incl. transfers) ----
     rate_device = 0.0
-    try:
-        edges, dw = dd.prepare_window(merged, coverage, L)
-        if dw is not None:
-            B = dd.B_MAX
-            dws = [dw] * B
-            dd._run_batch_pallas(dws, read_type, sc_tail=True)  # warm
-            t_d = float("inf")
-            for _ in range(2):
-                t0 = time.time()
-                dd._run_batch_pallas(dws, read_type, sc_tail=True)
-                t_d = min(t_d, time.time() - t0)
-            # prep runs on the host alongside (pipelined); charge the
-            # device path the larger of transfer+scan and its host prep
+    edges, dw = dd.prepare_window(merged, coverage, L)
+    if dw is not None:
+        B = dd.B_MAX
+        dws = [dw] * B
+        dd._run_batch(dws, read_type)  # warm
+        t_d = float("inf")
+        for _ in range(2):
             t0 = time.time()
-            dd.prepare_window(merged, coverage, L)
-            t_prep = (time.time() - t0) * B / width
-            rate_device = B * L / max(t_d, t_prep)
-    except Exception:
-        rate_device = 0.0
+            dd._run_batch(dws, read_type)
+            t_d = min(t_d, time.time() - t0)
+        # prep runs on the host alongside (pipelined); charge the device
+        # path the larger of transfer+scan and its host prep
+        t0 = time.time()
+        dd.prepare_window(merged, coverage, L)
+        t_prep = (time.time() - t0) * B / width
+        rate_device = B * L / max(t_d, t_prep)
     return {"native": rate_native, "device": rate_device}

@@ -1,4 +1,4 @@
-"""TPU path for the engine-2 link DP (get_cns_from_align_tags,
+"""Device path for the engine-2 link DP (get_cns_from_align_tags,
 lib/ctg_cns.c:1876-2144) — a fixed-shape tensor program over the MSA.
 
 Reformulation: the sparse (t_pos, delta, q_base) lattice becomes a flat
@@ -25,8 +25,9 @@ need no special casing — they are just more levels.
 
 The scan emits per-level winners (best entry slot + its score per cell);
 the host maps them back onto the EdgeTable and reuses dp.traceback, so
-byte-parity with the host paths is structural.  Batched windows run the
-same scan under vmap with per-window padding.
+byte-parity with the host paths is structural.  On the GPU the scan is the
+Pallas kernel in pallas_scan.py (one program per window); the plain
+lax.scan below is its reference and the CPU backend's scan.
 """
 from __future__ import annotations
 
@@ -220,17 +221,16 @@ def densify_window(edges: EdgeTable, coverage: np.ndarray, length: int
 # device scan
 # ---------------------------------------------------------------------------
 #
-# Packed level layout (TPU-friendly: trailing dims pad to (8, 128) tiles, so
-# slots are flattened to 6*E lanes and fields are packed into int32 words):
+# Packed level layout (fields packed into int32 words, slots flattened):
 #   A[l, c*E+e] = (link << 16) | (pp_idx << 8) | flags
 #   M[l, c*E+e] = match bits (bit n set: pred slot n matches our ppp)
 #   meta[l]     = (cov << 8) | ((vslot + 1) << 2) | (is_d0 << 1) | is_pad
-# The scan walks T levels per step (chunking amortizes per-step overhead).
+# The plain scan walks T levels per step (chunking amortizes per-step
+# overhead).
 
 import os as _os
 
 LEVELS_PER_STEP = int(_os.environ.get("NPT_DP_LEVELS_PER_STEP", "8"))
-_LC_BUCKET = 512
 
 
 def _dp_level(carry, A, M, meta, *, E, Vb, rt_id, cov_coef):
@@ -349,286 +349,208 @@ def _scan_packed(A, M, meta, *, E, Vb, rt_id, cov_coef):
     return (best.reshape(-1, 6), sc_bm.reshape(-1, 6))
 
 
-_JITTED = {}
-_PALLAS_WARNED = False
+B_MAX = 8  # windows per launch (one kernel program each)
+E_BUCKETS = (16, 24)  # entry-slot buckets: Ep = 16 / 32 kernel lanes
+VB_BUCKETS = (8, 24)  # boundary-ring buckets (MAX_VB = 24)
 
 
-def _get_scan(E, Vb, rt_id, cov_coef):
+def size_bucket(n: int) -> int:
+    """Smallest {1, 1.25, 1.5, 1.75} x pow2 >= n: padded sizes stay within
+    ~25% while jit shape variants stay a small set."""
+    n = max(n, 1)
+    p = 1
+    while True:
+        for m in (4, 5, 6, 7):
+            c = p * m // 4
+            if c >= n:
+                return c
+        p *= 2
+
+
+def _use_kernel() -> bool:
+    """True on the GPU backend (the Triton level-scan kernel), False on
+    the CPU backend (the plain lax.scan).  Any other platform raises."""
     import jax
 
-    key = (E, Vb, rt_id, cov_coef)
-    fn = _JITTED.get(key)
-    if fn is None:
-        f = partial(_scan_packed, E=E, Vb=Vb, rt_id=rt_id,
-                    cov_coef=cov_coef)
-        # batch axis leads: [B, Lc, T, 6E] — keeps the per-step xs slices
-        # (T, 6E) in the tiled trailing dims with no layout copies
-        fn = jax.jit(jax.vmap(f, in_axes=(0, 0, 0), out_axes=0))
-        _JITTED[key] = fn
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return True
+    if platform == "cpu":
+        return False
+    raise RuntimeError(
+        f"engine-2 device scan: unsupported platform {platform!r}")
+
+
+@dataclass
+class Packed:
+    """Host-packed launch inputs for B windows: compact per-entry streams
+    (scattered into dense [B, NCL, 8, Ep] slabs on device) + level meta."""
+
+    lvl: np.ndarray  # int32 [B, P] level of each entry (pad: NCL, dropped)
+    col: np.ndarray  # int32 [B, P] cell * Ep + slot
+    A: np.ndarray  # int32 [B, P]
+    M: np.ndarray  # int32 [B, P]
+    meta: np.ndarray  # int32 [B, NCL] (levels past a window: pad bit)
+    nlev: np.ndarray  # int32 [B]
+    Lts: list
+    E: int
+    Vb: int
+    NCL: int
+
+    def args(self):
+        return (self.lvl, self.col, self.A, self.M, self.meta, self.nlev)
+
+
+def pack_group(chunk, B: int | None = None, E: int = 0, Vb: int = 0
+               ) -> Packed:
+    """Pack up to B windows (default: the next power of two of the chunk
+    size) into the (E, Vb) bucket that fits them all; `E`/`Vb` raise the
+    bucket floor (tests and the smoke check exercise every bucket)."""
+    from .pallas_scan import pow2
+
+    E = min(x for x in E_BUCKETS if x >= max([E] + [dw.E for dw in chunk]))
+    Vb = min(x for x in VB_BUCKETS
+             if x >= max([Vb] + [dw.Vb for dw in chunk]))
+    B = B or pow2(len(chunk))
+    Ep = pow2(E)
+    Lts = [dw.n_levels for dw in chunk]
+    T = LEVELS_PER_STEP
+    NCL = -(-size_bucket(max(Lts)) // T) * T
+    P = size_bucket(max(len(dw.ent_b) for dw in chunk))
+    lvl = np.full((B, P), NCL, dtype=np.int32)
+    col = np.zeros((B, P), dtype=np.int32)
+    A = np.zeros((B, P), dtype=np.int32)
+    M = np.zeros((B, P), dtype=np.int32)
+    meta = np.ones((B, NCL), dtype=np.int32)  # pad bit set
+    nlev = np.zeros(B, dtype=np.int32)
+    for i, dw in enumerate(chunk):
+        n = len(dw.ent_b)
+        a = dw.ent_A
+        if Vb != dw.Vb:
+            # re-base same-position pred indices past the wider ring
+            a = a + (dw.ent_same.astype(np.int32) * ((Vb - dw.Vb) * 6)
+                     << 8)
+        lvl[i, :n] = dw.ent_lvl
+        col[i, :n] = dw.ent_b.astype(np.int32) * Ep + dw.ent_slot
+        A[i, :n] = a
+        M[i, :n] = dw.ent_M
+        meta[i, :Lts[i]] = dw.meta
+        nlev[i] = Lts[i]
+    return Packed(lvl, col, A, M, meta, nlev, Lts, E, Vb, NCL)
+
+
+_FNS = {}
+
+
+def get_scan(kernel: bool, E, Vb, rt_id, cov_coef, B, NCL, P):
+    """Jitted launch f(*Packed.args()) -> (best int8, sc int32) [B, NCL, 6]
+    for one shape bucket: the device-side slab scatter, then the Pallas
+    kernel (`kernel`) or the plain chunked lax.scan."""
+    import jax
+    import jax.numpy as jnp
+
+    from .pallas_scan import CELLS, level_scan_call, pow2
+
+    platform = jax.default_backend()
+    key = (kernel, platform, E, Vb, rt_id, cov_coef, B, NCL, P)
+    fn = _FNS.get(key)
+    if fn is not None:
+        return fn
+    Ep = pow2(E)
+    T = LEVELS_PER_STEP
+    if kernel:
+        call = level_scan_call(E, Vb, rt_id, cov_coef, B, NCL, platform)
+    else:
+        scan = jax.vmap(partial(_scan_packed, E=E, Vb=Vb, rt_id=rt_id,
+                                cov_coef=cov_coef))
+
+    def run(lvl, col, A, M, meta, nlev):
+        bi = jnp.broadcast_to(jnp.arange(B, dtype=jnp.int32)[:, None],
+                              lvl.shape)
+        z = jnp.zeros((B, NCL, CELLS * Ep), jnp.int32)
+        As = z.at[bi, lvl, col].set(A, mode="drop")
+        Ms = z.at[bi, lvl, col].set(M, mode="drop")
+        As = As.reshape(B, NCL, CELLS, Ep)
+        Ms = Ms.reshape(B, NCL, CELLS, Ep)
+        if kernel:
+            best, sc = call(As, Ms, meta, nlev)
+            return best[:, :, :6].astype(jnp.int8), sc[:, :, :6]
+
+        def lanes(x):
+            return x[:, :, :6, :E].reshape(B, NCL // T, T, 6 * E)
+
+        best, sc = scan(lanes(As), lanes(Ms), meta.reshape(B, NCL // T, T))
+        return best.reshape(B, NCL, 6), sc.reshape(B, NCL, 6)
+
+    fn = jax.jit(run)
+    _FNS[key] = fn
     return fn
 
 
-def _pallas_ok(dws) -> bool:
-    """Pallas path: enabled backend + every window under the col-byte cap
-    (E > MAX_PALLAS_E falls back to the chunked lax.scan)."""
-    from .pallas_scan import MAX_PALLAS_E
-
-    return _use_pallas() and max(dw.E for dw in dws) <= MAX_PALLAS_E
-
-
-def _use_pallas() -> bool:
-    """The pallas level-scan kernel runs on real TPU backends; CPU (tests,
-    virtual meshes) uses the lax.scan path.  NPT_CNS_PALLAS=0/1 forces."""
-    import os
-
-    env = os.environ.get("NPT_CNS_PALLAS")
-    if env is not None:
-        return env not in ("0", "false", "off")
-    try:
-        import jax
-
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
-B_MAX = int(_os.environ.get("NPT_CNS_PALLAS_B", "8"))
-
-
-def _run_batch_pallas(dws, read_type, cov_coef=None, sc_tail=False):
-    """Pallas-kernel scans over DenseWindows: windows are grouped B per
-    launch (lane-packed — see pallas_scan.py) and all groups dispatch
-    before any result is fetched, so the device pipelines them.
-
-    With sc_tail=True, only each window's last-position score levels cross
-    back (all a traceback needs); earlier levels read NEG."""
-    return _collect_batch_pallas(
-        _dispatch_batch_pallas(dws, read_type, cov_coef), sc_tail=sc_tail)
-
-
-def _dispatch_batch_pallas(dws, read_type, cov_coef=None):
-    """Pack + launch the windows' pallas scans, B windows per launch
-    (async); returns pending handles for _collect_batch_pallas."""
+def _dispatch_batch(dws, read_type, cov_coef=None, kernel=None,
+                    E=0, Vb=0, devices=None):
+    """Pack + launch the windows' scans, B_MAX windows per launch (async);
+    returns pending handles for _collect_batch.  `kernel` defaults to the
+    backend's route (_use_kernel); window groups round-robin over
+    `devices` (default runtime.devices.compute_devices)."""
     import jax
 
-    # chip-level window parallelism: round-robin window groups over every
-    # local chip (windows are the reference's batch axis,
-    # lib/ctg_cns.c:3455-3594; chips take the place of worker processes).
-    # CPU keeps one device unless the multi-device test forces it.
-    devices = jax.devices()
-    if jax.default_backend() == "cpu" and \
-            _os.environ.get("NPT_MULTIDEV") != "1":
-        devices = devices[:1]
+    from ...runtime import trace
+    from ...runtime.devices import compute_devices
+
+    if kernel is None:
+        kernel = _use_kernel()
+    # window-group parallelism: round-robin groups over the local devices
+    # (windows are the reference's batch axis, lib/ctg_cns.c:3455-3594;
+    # devices take the place of worker processes)
+    devices = devices or compute_devices()
     rt_id = READ_TYPE_ID[read_type]
     c = COV_COEF[read_type] if cov_coef is None else cov_coef
     pend = []
     for gi, glo in enumerate(range(0, len(dws), B_MAX)):
-        chunk = dws[glo:glo + B_MAX]
-        pend.append(_dispatch_group(chunk, rt_id, c,
-                                    devices[gi % len(devices)]))
+        pk = pack_group(dws[glo:glo + B_MAX], E=E, Vb=Vb)
+        B, P = pk.lvl.shape
+        fn = get_scan(kernel, pk.E, pk.Vb, rt_id, c, B, pk.NCL, P)
+        args = jax.device_put(pk.args(), devices[gi % len(devices)])
+        trace.count("cns.levels", max(pk.Lts))
+        trace.count("cns.launches", 1)
+        pend.append((pk.Lts, fn(*args)))
     return pend
 
 
-def pack_group(chunk, rt_id, c):
-    """Pack up to B_MAX windows into the ONE-buffer launch form.
-    Returns (fn, buf, l0, shape) with shape = (Lts, NCL, B, E, Vb);
-    callers launch with fn(buf, l0) (bench times repeated launches on a
-    pre-placed buffer this way — runtime.roofline.time_launches)."""
-    from .pallas_scan import MAX_PALLAS_E, PAD_COL, choose_cl, get_level_scan
-
-    from .pallas_scan import size_bucket
-
-    # shape buckets are deliberately COARSE: every distinct
-    # (E, Vb, B, NCL, P) tuple is a separate XLA compilation, and the
-    # cross-contig batcher composes groups nondeterministically — a fine
-    # bucket lattice turns batch composition jitter into fresh compiles
-    # mid-run.  E and Vb only widen the kernel's lane space (zero extra
-    # transfer bytes — the entry streams are Et-sized), so they take
-    # one of two values (E=16 runs ~1.8x faster per level than the
-    # E=20 cap, and most windows fit it); only P (entry-stream pad,
-    # real wire bytes) keeps the fine 1.25x buckets.
-    E = 16 if max(dw.E for dw in chunk) <= 16 else MAX_PALLAS_E
-    Vb = 8 if max(dw.Vb for dw in chunk) <= 8 else 24
-    B = min(x for x in (1, 2, 4, 8, 16, 32)
-            if x >= len(chunk))
-    CL = choose_cl(E, Vb, B)
-    Lts = [dw.n_levels for dw in chunk]
-    nc = -(-max(Lts) // CL)
-    p2 = 1
-    while p2 < nc:
-        p2 *= 2
-    NCL = p2 * CL
-    P = size_bucket(max(len(dw.ent_b) for dw in chunk))
-    MPL = (E + 7) // 8
-    PB = B * P
-    buf = np.zeros((5 + MPL) * PB + 4 * NCL * B, dtype=np.uint8)
-    buf[:PB] = PAD_COL
-    meta_arr = np.ones((NCL, B), dtype=np.uint32)  # pad bit set
-    l0 = np.zeros(B, dtype=np.int32)
-    for wb, dw in enumerate(chunk):
-        nc = len(dw.ent_b)
-        col = dw.ent_slot.astype(np.int32) * 6 + dw.ent_b
-        adv = np.ones(nc, dtype=np.uint8)
-        adv[1:] = (dw.ent_lvl[1:] != dw.ent_lvl[:-1]).astype(np.uint8)
-        a = dw.ent_A
-        if Vb != dw.Vb:
-            # re-base same-position pred indices past the wider ring
-            a = a + (dw.ent_same.astype(np.int32) * ((Vb - dw.Vb) * 6)
-                     << 8)
-        o = wb * P
-        buf[o:o + nc] = (adv << 7) | col.astype(np.uint8)
-        a32 = a.astype(np.uint32)
-        for pb in range(4):
-            buf[(1 + pb) * PB + o:(1 + pb) * PB + o + nc] = \
-                (a32 >> (8 * pb)) & 0xFF
-        m32 = dw.ent_M.astype(np.uint32)
-        for pb in range(MPL):
-            buf[(5 + pb) * PB + o:(5 + pb) * PB + o + nc] = \
-                (m32 >> (8 * pb)) & 0xFF
-        meta_arr[:Lts[wb], wb] = dw.meta
-        lp = dw.level_pos
-        l0[wb] = int(np.searchsorted(lp, lp[-1]))
-    mb = (5 + MPL) * PB
-    mf = meta_arr.ravel()
-    NB_ = NCL * B
-    for pb in range(4):
-        buf[mb + pb * NB_:mb + (pb + 1) * NB_] = (mf >> (8 * pb)) & 0xFF
-    fn = get_level_scan(E, Vb, rt_id, c, NCL, P, B)
-    return fn, buf, l0, (Lts, NCL, B, E, Vb)
-
-
-def _dispatch_group(chunk, rt_id, c, device):
-    """ONE buffer, ONE launch for up to B_MAX windows."""
-    import jax
-
-    from .pallas_scan import TAIL
-
-    fn, buf, l0, (Lts, NCL, B, E, Vb) = pack_group(chunk, rt_id, c)
-    if device is not None:
-        buf = jax.device_put(buf, device)
-        l0d = jax.device_put(l0, device)
-    else:
-        l0d = l0
-    # work-volume counters for device-utilization accounting (bench.py
-    # turns these into device_busy_frac / kernel_mfu via runtime.roofline)
-    from ...runtime import roofline, trace
-
-    lv_exec = -(-max(Lts) // 8) * 8  # all-pad tail groups skip
-    trace.count("cns.levels", lv_exec)
-    trace.count("cns.launches", 1)
-    trace.count("cns.flops", roofline.cns_scan_flops(E, Vb, B, lv_exec))
-    trace.count("cns.hbm_bytes", roofline.cns_scan_bytes(E, Vb, B, lv_exec))
-    packed_d, sc_d = fn(buf, l0d)
-    try:
-        packed_d.copy_to_host_async()
-    except AttributeError:
-        pass
-    return chunk, Lts, l0, NCL, min(TAIL, NCL), B, E, packed_d, sc_d
-
-
-def _collect_batch_pallas(pend, sc_tail=False):
-    """Fetch the pending pallas results -> per-window (best, sc).
-    One transfer per group: the packed byte buffer carries the bit-packed
-    winners and every window's score tail."""
-    from .pallas_scan import NEG
-
+def _collect_batch(pend):
+    """Fetch pending launches -> per-window (best [Lt,6], sc_bm [Lt,6])."""
     out = []
-    for chunk, Lts, l0, NCL, TAILB, B, E, packed_d, sc_d in pend:
-        W = (E - 1).bit_length()
-        BPL = (6 * W + 7) // 8
-        shifts = W * np.arange(6, dtype=np.int64)
-        packed = np.asarray(packed_d).astype(np.int64)
-        NB_ = NCL * B
-        bp = sum(packed[k * NB_:(k + 1) * NB_] << (8 * k)
-                 for k in range(BPL)).reshape(NCL, B)
-        st = BPL * NB_
-        TB6 = B * TAILB * 6
-        sct = (packed[st:st + TB6] | (packed[st + TB6:st + 2 * TB6] << 8)
-               | (packed[st + 2 * TB6:st + 3 * TB6] << 16)
-               | (packed[st + 3 * TB6:st + 4 * TB6] << 24)
-               ).astype(np.int32).reshape(B, TAILB, 6)
-        for wb in range(len(chunk)):
-            Lt = Lts[wb]
-            best = ((bp[:Lt, wb, None] >> shifts[None])
-                    & ((1 << W) - 1)).astype(np.int8)
-            if sc_tail:
-                sc = np.full((Lt, 6), NEG, dtype=np.int32)
-                s = min(max(int(l0[wb]), 0), NCL - TAILB)
-                e = min(s + TAILB, Lt)
-                sc[s:e] = sct[wb, :e - s]
-                if e < Lt:  # tail longer than TAILB levels (rare)
-                    sc[e:Lt] = np.asarray(
-                        sc_d[e:Lt, wb * 6:(wb + 1) * 6])
-            else:
-                sc = np.asarray(sc_d[:Lt, wb * 6:(wb + 1) * 6])
-            out.append((best, sc))
+    for Lts, (best_d, sc_d) in pend:
+        best = np.asarray(best_d)
+        sc = np.asarray(sc_d)
+        out.extend((best[i, :Lt], sc[i, :Lt]) for i, Lt in enumerate(Lts))
     return out
 
 
-def _run_batch(dws, read_type, cov_coef=None, mesh=None, sc_tail=False):
+def _run_batch(dws, read_type, cov_coef=None, mesh=None, kernel=None,
+               E=0, Vb=0):
     """Run the scan over a batch of DenseWindows; returns per-window
-    (best [Lt,6], sc_bm [Lt,6]) numpy arrays.  With `mesh`, the batch
-    axis is sharded over every mesh axis (window data parallelism — the
-    TPU analog of blc_genome's contig blocks).  On a TPU backend the scan
-    runs as pallas launches (pallas_scan.py); the chunked lax.scan is
-    the fallback and the parity oracle (it always returns full sc)."""
+    (best [Lt,6], sc_bm [Lt,6]) numpy arrays.  With `mesh`, the window
+    axis of one plain-scan launch is sharded over every mesh axis (window
+    data parallelism — blc_genome's contig blocks)."""
+    if mesh is None:
+        return _collect_batch(_dispatch_batch(dws, read_type, cov_coef,
+                                              kernel, E, Vb))
     import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
 
-    if mesh is None and _pallas_ok(dws):
-        try:
-            return _run_batch_pallas(dws, read_type, cov_coef,
-                                     sc_tail=sc_tail)
-        except Exception as e:  # fall through to the lax.scan path
-            global _PALLAS_WARNED
-            if not _PALLAS_WARNED:
-                _PALLAS_WARNED = True
-                import warnings
+    from .pallas_scan import pow2
 
-                warnings.warn(f"pallas level scan unavailable ({e!r}); "
-                              "using lax.scan")
-
-    rt_id = READ_TYPE_ID[read_type]
+    nd = int(np.prod(list(mesh.shape.values())))
+    pk = pack_group(dws, B=max(pow2(len(dws)), nd), E=E, Vb=Vb)
     c = COV_COEF[read_type] if cov_coef is None else cov_coef
-    # bucket the caps so the jit cache sees few shape variants
-    E = min(x for x in (8, 12, 16, 20, 24)
-            if x >= max(dw.E for dw in dws))
-    Vb = min(x for x in (8, 16, 24)
-             if x >= max(dw.Vb for dw in dws))
-    T = LEVELS_PER_STEP
-    n_real = len(dws)
-    if mesh is not None:
-        nd = int(np.prod(list(mesh.shape.values())))
-        while len(dws) % nd:
-            dws = dws + [dws[-1]]
-    Lts = [dw.n_levels for dw in dws]
-    Lc = -(-max(Lts) // T)
-    Lc = -(-Lc // _LC_BUCKET) * _LC_BUCKET
-    B = len(dws)
-    A = np.zeros((B, Lc * T, 6 * E), dtype=np.int32)
-    M = np.zeros((B, Lc * T, 6 * E), dtype=np.int32)
-    meta = np.ones((B, Lc * T), dtype=np.int32)  # pad bit set
-    for i, dw in enumerate(dws):
-        col = dw.ent_b.astype(np.int64) * E + dw.ent_slot
-        a = dw.ent_A
-        if Vb != dw.Vb:
-            # re-base same-position pred indices past the wider ring
-            a = a + (dw.ent_same.astype(np.int32) * ((Vb - dw.Vb) * 6)
-                     << 8)
-        A[i, dw.ent_lvl, col] = a
-        M[i, dw.ent_lvl, col] = dw.ent_M
-        meta[i, :Lts[i]] = dw.meta
-    fn = _get_scan(E, Vb, rt_id, c)
-    args = (A.reshape(B, Lc, T, 6 * E), M.reshape(B, Lc, T, 6 * E),
-            meta.reshape(B, Lc, T))
-    if mesh is not None:
-        from jax.sharding import NamedSharding, PartitionSpec as P
-
-        sh = NamedSharding(mesh, P(mesh.axis_names))
-        args = tuple(jax.device_put(x, sh) for x in args)
-    best, sc_bm = fn(*args)
-    best = np.asarray(best)
-    sc_bm = np.asarray(sc_bm)
-    return [(best[i, :Lts[i]], sc_bm[i, :Lts[i]]) for i in range(n_real)]
+    B, Pn = pk.lvl.shape
+    fn = get_scan(False, pk.E, pk.Vb, READ_TYPE_ID[read_type], c, B,
+                  pk.NCL, Pn)
+    sh = NamedSharding(mesh, P(mesh.axis_names))
+    best, sc = fn(*(jax.device_put(x, sh) for x in pk.args()))
+    return _collect_batch([(pk.Lts, (best, sc))])
 
 
 def device_link_dp(dw: DenseWindow, read_type: str,
@@ -699,9 +621,9 @@ def cns_dp_device(merged, coverage, length, read_type, min_cov, lq_min_qv):
 
 
 def cns_dp_device_batch_begin(items, read_type):
-    """Prepare + dispatch a batch of windows; the device scans (and their
-    host copies) run while the caller preps the next group.  Returns an
-    opaque state for cns_dp_device_batch_end."""
+    """Prepare + dispatch a batch of windows; the device scans run while
+    the caller preps the next group.  Returns an opaque state for
+    cns_dp_device_batch_end."""
     denses = []
     metas = []
     for merged, coverage, length in items:
@@ -709,40 +631,21 @@ def cns_dp_device_batch_begin(items, read_type):
         denses.append(dw)
         metas.append((edges, coverage, length))
     todo = [i for i, dw in enumerate(denses) if dw is not None]
-    handles = None
-    if todo:
-        if _pallas_ok([denses[i] for i in todo]):
-            try:
-                handles = _dispatch_batch_pallas(
-                    [denses[i] for i in todo], read_type)
-            except Exception as e:
-                global _PALLAS_WARNED
-                if not _PALLAS_WARNED:
-                    _PALLAS_WARNED = True
-                    import warnings
-
-                    warnings.warn(f"pallas level scan unavailable ({e!r});"
-                                  " using lax.scan")
-    return denses, metas, todo, handles, read_type
+    pend = (_dispatch_batch([denses[i] for i in todo], read_type)
+            if todo else [])
+    return denses, metas, todo, pend, read_type
 
 
 def cns_dp_device_batch_end(state, min_cov, lq_min_qv):
     """Collect a cns_dp_device_batch_begin state -> [Consensus | None]."""
-    denses, metas, todo, handles, read_type = state
+    denses, metas, todo, pend, read_type = state
     out = [None] * len(denses)
-    if todo:
-        if handles is not None:
-            results = _collect_batch_pallas(handles, sc_tail=True)
-        else:
-            # sc_tail: the traceback only reads the last position's scores
-            results = _run_batch([denses[i] for i in todo], read_type,
-                                 sc_tail=True)
-        for i, (best, sc_bm) in zip(todo, results):
-            dw = denses[i]
-            edges, coverage, length = metas[i]
-            score, barr = _to_edge_outputs(dw, best, sc_bm)
-            out[i] = traceback(edges, score, barr, coverage, length,
-                               read_type, min_cov, lq_min_qv=lq_min_qv)
+    for i, (best, sc_bm) in zip(todo, _collect_batch(pend)):
+        dw = denses[i]
+        edges, coverage, length = metas[i]
+        score, barr = _to_edge_outputs(dw, best, sc_bm)
+        out[i] = traceback(edges, score, barr, coverage, length,
+                           read_type, min_cov, lq_min_qv=lq_min_qv)
     return out
 
 

@@ -1,401 +1,252 @@
-"""Batched Pallas TPU kernel for the engine-2 level scan (device_dp.py).
+"""Pallas (Triton route) kernel for the engine-2 level scan (device_dp.py).
 
-The link DP is sequential over a window's (t_pos, delta) levels, so a
-single window can never fill the chip: one level is ~6*E lanes of work.
-The batch axis is WINDOWS — the same axis the reference parallelises with
-worker processes (the window loop, lib/ctg_cns.c:3455-3594).  This kernel
-packs B windows into the lane dimension and walks all of them in ONE
-launch: level l of every window advances together, so per-level work is
-B * 6E lanes and the two one-hot matmuls become real MXU ops.
+The link DP is sequential over a window's (t_pos, delta) levels, and one
+level is only ~6*E entries of work, so the parallel axis is WINDOWS — the
+same axis the reference parallelises with worker processes (the window
+loop, lib/ctg_cns.c:3455-3594).  The kernel runs one program per window;
+each program walks all of its window's levels in a loop, so the whole
+scan is one launch with no per-level round trip through the host.
 
-Lane layout (slot-major, window-minor):
-  entry lanes:  lane = e * 6B + b * 6 + c      (slot e, window b, cell c)
-  source lanes: lane = b * NSRC + v * 6 + c    (ring slot v, or v=Vb: prev)
-so the winning-entry selection loop slices one slot's [1, 6B] cells
-contiguously, and each window's boundary ring + previous level stay in a
-contiguous src block.  Predecessor gathers and the lanes->sublanes carry
-transpose are exact chunked one-hot matmuls (f32 dot truncates to bf16, so
-int32 scores travel as four 8-bit chunks); per-window meta (coverage, ring
-slot, d0/pad bits) is expanded from a [G, B] block to lane vectors with
-the same chunked one-hot trick once per 8-level group.
+Per level a program holds the level's entries as an [8, Ep] tile (6 base
+cells padded to 8, E entry slots padded to a power of two) and:
 
-Transfers are the other half of the design (the DP data is far bigger than
-the compute): inputs arrive as ONE byte-planar uint8 buffer of compact
-per-entry streams (the dense [NCL, 6EB] slabs never cross the link — they
-are scattered on device in the same jit), and results leave as ONE packed
-uint8 buffer: per-level winners bit-packed 6x5 bits into an int32 plane
-plus a per-window score tail (the traceback only reads the last position's
-scores).  Without this, fetching a [NCL, 6]-shaped device array pays a
-~20x lane-padding penalty on the wire.
+  1. gathers every entry's predecessor cell row from the DP carry — the
+     boundary ring (d0 levels) or the previous level — with one indexed
+     load from the carry buffer (an extra kernel output that stays in
+     L1/L2); the next level's tiles load at the same time;
+  2. scores all entries at once (match-masked max, last matching slot);
+  3. picks each cell's winner with the read-type rules, unrolled over the
+     E slots in insertion order exactly like the C loop, reading each
+     slot's column back from a per-program scratch (reductions over the
+     slot axis cost ~10x more per level on the H100);
+  4. writes the winners, then the new carry rows (ring reset on d0
+     levels, ring slot, previous level), with block barriers around the
+     scratch and carry writes so later loads see them.
+
+4 warps per program measured fastest (2 and 8 were slower on the H100).
 
 Semantics are bit-identical to device_dp._dp_level (tested against the
 lax.scan path in tests/test_device_dp.py, which is in turn
-byte-parity-tested against the reference .so).
+byte-parity-tested against the host engines).  All arithmetic is int32.
 """
 from __future__ import annotations
 
 from functools import partial
 
-NEG = -(2 ** 29)
-NEGINIT = -(2 ** 30)
+from .device_dp import (
+    F_COND1A,
+    F_COND2B,
+    F_HEAD,
+    F_PPB_NOT_GAP,
+    F_VALID,
+    NEG,
+    NEGINIT,
+)
 
-F_VALID = 1
-F_HEAD = 2
-F_COND1A = 4
-F_COND2B = 8
-F_PPB_NOT_GAP = 16
+F_MATCH = 32  # kernel-local: entry has a matching predecessor
 
-G = 8      # levels per inner group (aligned sublane tile)
-TAIL = 512  # score-tail rows fetched per window
-PAD_COL = 127  # entry-stream padding marker (low 7 bits)
-MAX_PALLAS_E = 20  # col byte = adv<<7 | slot*6+cell needs slot*6+cell < 127
+CELLS = 8  # 6 base cells padded to a power of two (Triton tensor sizes)
+FL, SC, NB, NL = range(4)  # per-entry tiles the selection reads
 
 
-def size_bucket(n: int) -> int:
-    """Smallest {1, 1.25, 1.5, 1.75} x pow2 >= n — finer than pow2 so
-    padded transfer volume stays within ~25%, while jit shape variants
-    stay a small set."""
-    n = max(n, 1)
+def pow2(n: int) -> int:
     p = 1
-    while True:
-        for m in (4, 5, 6, 7):
-            c = p * m // 4
-            if c >= n:
-                return c
+    while p < n:
         p *= 2
+    return p
 
 
-def choose_cl(E: int, Vb: int, B: int) -> int:
-    """Levels per grid step, sized so the VMEM working set (double-buffered
-    A/M blocks + the materialised one-hot/iota constants) stays ~<12 MB."""
-    SB = 6 * B
-    C6B = E * SB
-    NSB = B * (Vb + 1) * 6
-    const = (C6B * NSB * 2 + B * (C6B + NSB) + E * C6B * 2) * 4
-    for cl in (256, 128, 64, 32):
-        blocks = cl * C6B * 4 * 2 * 2  # A+M, double-buffered
-        if const + blocks < 12 * 2 ** 20:
-            return cl
-    return 32
-
-
-def _kernel(A_ref, M_ref, meta_ref, best_ref, sc_ref, src_ref, out8_ref,
-            *, E, Vb, B, CL, rt_id, cov_coef):
+def _kernel(A_ref, M_ref, meta_ref, nlev_ref, best_ref, sc_ref, src_ref,
+            cols_ref, *, E, Ep, Vb, rt_id, cov_coef, sync):
+    """One program = one window.  A/M [B, NCL, 8, Ep], meta [B, NCL],
+    nlev [B]; outputs best/sc [B, NCL, 8]; src_ref [B, Vbp+1, 8, Ep] is
+    the DP carry: ring slots 0..Vbp-1, previous level at slot Vbp;
+    cols_ref [B, 4, 8, Ep] holds the per-entry tiles the winner selection
+    reads back column by column."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
 
-    NSRC = (Vb + 1) * 6
-    SB = 6 * B
-    C6B = E * SB
-    NSB = B * NSRC
+    i32 = jnp.int32
+    Vbp = src_ref.shape[1] - 1
+    b = pl.program_id(0)
+    nidx = jax.lax.broadcasted_iota(i32, (CELLS, Ep, Ep), 2)
+    ring_slot = jax.lax.broadcasted_iota(i32, (Vbp, CELLS, Ep), 0)
+    nlev = nlev_ref[b]
 
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        src_ref[:, :] = jnp.full((E, NSB), NEG, jnp.int32)
+    def barrier():
+        if sync:  # a real block barrier; the interpreter runs in order
+            from jax.experimental.pallas import triton as plgpu
 
-    iota_n = jax.lax.broadcasted_iota(jnp.int32, (E, C6B), 0)  # pred slot
-    iota_j = jax.lax.broadcasted_iota(jnp.int32, (NSB, C6B), 0)
-    lane_c = jax.lax.broadcasted_iota(jnp.int32, (1, C6B), 1)
-    w_entry = (lane_c % SB) // 6  # window id per entry lane
-    lane_s = jax.lax.broadcasted_iota(jnp.int32, (E, NSB), 1)
-    slot6 = (lane_s % NSRC) // 6  # ring slot id per src lane
-    # per-window meta expanders (chunked one-hot matmuls)
-    onehotC = (jax.lax.broadcasted_iota(jnp.int32, (B, C6B), 0)
-               == (jax.lax.broadcasted_iota(jnp.int32, (B, C6B), 1) % SB)
-               // 6).astype(jnp.float32)
-    onehotN = (jax.lax.broadcasted_iota(jnp.int32, (B, NSB), 0)
-               == jax.lax.broadcasted_iota(jnp.int32, (B, NSB), 1)
-               // NSRC).astype(jnp.float32)
-    # carry transpose: rowsel picks lane block SB*n for sublane n; colsel
-    # maps (window, cell) entry lanes onto (window, *, cell) src lanes
-    rowsel = (iota_n
-              == jax.lax.broadcasted_iota(jnp.int32, (E, C6B), 1) // SB)
-    cs0 = jax.lax.broadcasted_iota(jnp.int32, (C6B, NSB), 0)
-    cs1 = jax.lax.broadcasted_iota(jnp.int32, (C6B, NSB), 1)
-    colsel = (((cs0 % SB) // 6 == cs1 // NSRC)
-              & (cs0 % 6 == cs1 % 6)).astype(jnp.float32)
+            plgpu.debug_barrier()
 
-    def chunks4(x, mask=None):
-        """Stack x (int32, |x| < 2^30) as four 8-bit chunks along sublanes
-        — every chunk is exact in bf16, so a default-precision one-hot
-        matmul reproduces the int exactly."""
-        parts = [x & 0xFF, (x >> 8) & 0xFF, (x >> 16) & 0xFF, x >> 24]
-        if mask is not None:
-            parts = [jnp.where(mask, p, 0) for p in parts]
-        return jnp.concatenate([p.astype(jnp.float32) for p in parts],
-                               axis=0)
+    src_ref[b, pl.ds(0, Vbp)] = jnp.full((Vbp, CELLS, Ep), NEG, i32)
+    src_ref[b, Vbp] = jnp.full((CELLS, Ep), NEG, i32)
+    barrier()
 
-    def recombine4(g):
-        k = g.shape[0] // 4
-        return (g[:k].astype(jnp.int32)
-                + (g[k:2 * k].astype(jnp.int32) << 8)
-                + (g[2 * k:3 * k].astype(jnp.int32) << 16)
-                + (g[3 * k:].astype(jnp.int32) << 24))
 
-    def level(a, m, mC, mN, src):
-        """One level of all B windows: a/m/mC [1, C6B], mN [1, NSB],
-        src [E, NSB].  Returns (bm [1,SB], sc_bm [1,SB], new src)."""
-        cov = mC >> 8
+    def load(l):
+        l = jnp.maximum(jnp.minimum(l, nlev - 1), 0)
+        return A_ref[b, l], M_ref[b, l], meta_ref[b, l]
+
+    def level(l, cur):
+        # the next level's inputs load now; their latency hides behind
+        # this level's work
+        nxt = load(l + 1)
+        a, m, meta = cur
+        cov = meta >> 8
+        vslot = ((meta >> 2) & 0x3F) - 1
+        is_d0 = ((meta >> 1) & 1) != 0
 
         link = a >> 16
-        pp_idx = (a >> 8) & 0xFF
+        ppi = (a >> 8) & 0xFF
         flags = a & 0xFF
         valid = (flags & F_VALID) != 0
         is_head = (flags & F_HEAD) != 0
-        cond1a = (flags & F_COND1A) != 0
-        cond2b = (flags & F_COND2B) != 0
-        ppb_ng = (flags & F_PPB_NOT_GAP) != 0
-
         w = 10 * link - cov_coef * cov
 
-        # ---- predecessor gather: one chunked one-hot matmul ----
-        pp_g = pp_idx + w_entry * NSRC
-        onehot = (iota_j == pp_g).astype(jnp.float32)  # [NSB, C6B]
-        pred = recombine4(jnp.dot(chunks4(src), onehot,
-                                  preferred_element_type=jnp.float32))
-
-        mbits = ((jnp.broadcast_to(m, (E, C6B)) >> iota_n) & 1) != 0
-        cand = jnp.where(mbits, pred, NEG)
-        n_best = jnp.max(cand, axis=0, keepdims=True)  # [1, C6B]
-        last_slot = jnp.max(jnp.where(mbits, iota_n, -1), axis=0,
-                            keepdims=True)
-        pick = iota_n == jnp.maximum(last_slot, 0)
-        n_last = jnp.sum(jnp.where(pick, pred, 0), axis=0, keepdims=True)
+        # predecessor rows: pp_idx = ring_slot * 6 + cell, where ring slot
+        # Vb (the bucket's) means the previous level
+        pslot = jax.lax.div(ppi, 6)
+        pcell = ppi - pslot * 6
+        pslot = jnp.where(pslot >= Vb, Vbp, pslot)
+        pred = src_ref[b, jnp.broadcast_to(pslot[:, :, None], nidx.shape),
+                       jnp.broadcast_to(pcell[:, :, None], nidx.shape),
+                       nidx]  # [8, Ep, Ep]
+        mbits = ((m[:, :, None] >> nidx) & 1) != 0
+        n_best = jnp.max(jnp.where(mbits, pred, NEG), axis=2)
+        last = jnp.maximum(jnp.max(jnp.where(mbits, nidx, -1), axis=2), 0)
+        n_last = jnp.sum(jnp.where(nidx == last[:, :, None], pred, 0),
+                         axis=2)
         has_match = n_best > NEG // 2
-
         sc = jnp.where(is_head, w,
                        jnp.where(has_match, jnp.maximum(n_best + w, 0), 0))
-        sc = jnp.where(valid, sc, NEG)  # [1, C6B]
+        sc = jnp.where(valid, sc, NEG)
+        # the selection walks slots in order: stage the per-entry tiles
+        # in the program's scratch and read them back one column (slot)
+        # at a time — the loads do not depend on the selection state, so
+        # they all issue up front
+        fl = flags | jnp.where(has_match, F_MATCH, 0) | (link << 8)
+        for k, x in enumerate((fl, sc, n_best, n_last)):
+            cols_ref[b, k] = x
+        barrier()
+
+        def col(k, e):
+            """Column e of tile k as an [8] vector."""
+            return cols_ref[b, k, :, e]
 
         # ---- winning-entry selection, unrolled over slots ----
-        def laneS(x, e):
-            return x[:, e * SB:(e + 1) * SB]  # static lane slice
-
-        covS = laneS(cov, 0)  # per-window coverage, constant over slots
-        bm = jnp.zeros((1, SB), jnp.int32)
-        sc_bm = laneS(sc, 0)
-        link_bm = laneS(link, 0)
-        p_pp = jnp.full((1, SB), NEGINIT, jnp.int32)
-        raiser = jnp.full((1, SB), NEGINIT, jnp.int32)
-        if rt_id == 0:  # ont: tmp = max link over entries per cell
-            lr = jnp.where(valid, link, 0)
-            tmp = laneS(lr, 0)
-            for e in range(1, E):
-                tmp = jnp.maximum(tmp, laneS(lr, e))
+        bm = jnp.zeros((CELLS,), i32)
+        sc_bm = col(SC, 0)
+        link_bm = col(FL, 0) >> 8
+        p_pp = jnp.full((CELLS,), NEGINIT, i32)
+        raiser = jnp.full((CELLS,), NEGINIT, i32)
+        if rt_id == 0:  # ont: tmp = max link over valid entries per cell
+            tmp = jnp.max(jnp.where(valid, link, 0), axis=1)
         for e in range(E):
-            v = laneS(valid, e)
-            hm = v & ~laneS(is_head, e) & laneS(has_match, e)
-            sc_e = laneS(sc, e)
-            nb_e = laneS(n_best, e)
-            ln_e = laneS(link, e)
+            fe = col(FL, e)
+            sc_e = col(SC, e)
+            nb_e = col(NB, e)
+            ln_e = fe >> 8
+            v = (fe & F_VALID) != 0
+            hm = v & ((fe & F_HEAD) == 0) & ((fe & F_MATCH) != 0)
+            ppb_ng = (fe & F_PPB_NOT_GAP) != 0
             raiser = jnp.where(v & (sc_e > 0), nb_e, raiser)
-            ev = jnp.full((1, SB), e, jnp.int32)
             if rt_id in (1, 3):  # clr / hifi
-                upd = hm & ((nb_e > p_pp)
-                            | ((nb_e == p_pp) & laneS(ppb_ng, e)))
-                bm = jnp.where(upd, ev, bm)
+                upd = hm & ((nb_e > p_pp) | ((nb_e == p_pp) & ppb_ng))
+                bm = jnp.where(upd, e, bm)
                 sc_bm = jnp.where(upd, sc_e, sc_bm)
                 link_bm = jnp.where(upd, ln_e, link_bm)
                 p_pp = jnp.where(upd, nb_e, p_pp)
             elif rt_id == 0:  # ont
-                c1 = hm & laneS(cond1a, e) & (
-                    (5 * ln_e > covS) | (ln_e > tmp // 2))
-                c2 = ~c1 & hm & (ln_e > link_bm // 2) \
-                    & (nb_e > p_pp) & laneS(cond2b, e)
+                c1 = hm & ((fe & F_COND1A) != 0) & (
+                    (5 * ln_e > cov) | (ln_e > jax.lax.div(tmp, 2)))
+                c2 = (~c1 & hm & (ln_e > jax.lax.div(link_bm, 2))
+                      & (nb_e > p_pp) & ((fe & F_COND2B) != 0))
                 upd = c1 | c2
-                bm = jnp.where(upd, ev, bm)
+                bm = jnp.where(upd, e, bm)
                 sc_bm = jnp.where(upd, sc_e, sc_bm)
                 link_bm = jnp.where(upd, ln_e, link_bm)
-                p_pp = jnp.where(c1, laneS(n_last, e),
+                p_pp = jnp.where(c1, col(NL, e),
                                  jnp.where(c2, nb_e, p_pp))
             # common final rule
             if rt_id == 2:  # rs
                 upd = v & (sc_e >= sc_bm)
             else:
-                upd = v & ((sc_e > sc_bm)
-                           | ((sc_e == sc_bm) & laneS(ppb_ng, e)))
-            bm = jnp.where(upd, ev, bm)
+                upd = v & ((sc_e > sc_bm) | ((sc_e == sc_bm) & ppb_ng))
+            bm = jnp.where(upd, e, bm)
             sc_bm = jnp.where(upd, sc_e, sc_bm)
             link_bm = jnp.where(upd, ln_e, link_bm)
             p_pp = jnp.where(upd, raiser, p_pp)
+        best_ref[b, l] = bm
+        sc_ref[b, l] = sc_bm
 
-        # ---- carry update (per-window pad levels leave state alone) ----
-        scB = jnp.broadcast_to(sc, (E, C6B))
-        sc_tiled = recombine4(jnp.dot(chunks4(scB, mask=rowsel), colsel,
-                                      preferred_element_type=jnp.float32))
-        mNb = jnp.broadcast_to(mN, (E, NSB))
-        vslotN = ((mNb >> 2) & 0x3F) - 1
-        is_d0N = ((mNb >> 1) & 1) != 0
-        is_padN = (mNb & 1) != 0
-        ring_lane = slot6 < Vb
-        rot = jnp.where(ring_lane & is_d0N & ~is_padN,
-                        jnp.full((E, NSB), NEG, jnp.int32), src)
-        write_ring = ring_lane & (slot6 == vslotN) & (vslotN >= 0) \
-            & ~is_padN
-        out = jnp.where(write_ring, sc_tiled, rot)
-        out = jnp.where((slot6 == Vb) & ~is_padN, sc_tiled, out)
-        return bm, sc_bm, out
+        # ---- carry update: every gather of this level is done first ----
+        barrier()
 
-    def group(g, src):
-        base = pl.multiple_of(g * G, G)
-        meta_blk = meta_ref[pl.ds(base, G), :]  # [G, B]
+        @pl.when(is_d0)
+        def _():  # new position: reset the ring, then stage this level
+            src_ref[b, pl.ds(0, Vbp)] = jnp.where(
+                ring_slot == vslot, jnp.broadcast_to(sc, ring_slot.shape),
+                NEG)
 
-        def run_group(src):
-            A8 = A_ref[pl.ds(base, G), :]  # [G, C6B] register block
-            M8 = M_ref[pl.ds(base, G), :]
-            mCg = recombine4(jnp.dot(chunks4(meta_blk), onehotC,
-                                     preferred_element_type=jnp.float32))
-            mNg = recombine4(jnp.dot(chunks4(meta_blk), onehotN,
-                                     preferred_element_type=jnp.float32))
-            for r in range(G):
-                bm, sc_bm, src = level(A8[r:r + 1, :], M8[r:r + 1, :],
-                                       mCg[r:r + 1, :], mNg[r:r + 1, :],
-                                       src)
-                out8_ref[r, :SB] = bm[0]
-                out8_ref[r, SB:] = sc_bm[0]
-            blk = out8_ref[:, :]
-            best_ref[pl.ds(base, G), :] = blk[:, :SB]
-            sc_ref[pl.ds(base, G), :] = blk[:, SB:]
-            return src
+        @pl.when(~is_d0 & (vslot >= 0))
+        def _():
+            src_ref[b, vslot] = sc
 
-        # NCL buckets to the next pow2 of chunks, so the tail past every
-        # window's levels can be large: groups where every window is
-        # padding skip the whole level pipeline (their carries are no-ops
-        # and nothing downstream reads their outputs)
-        all_pad = jnp.min(meta_blk & 1) == 1
-        return jax.lax.cond(all_pad, lambda s: s, run_group, src)
+        src_ref[b, Vbp] = sc
+        barrier()
+        return nxt
 
-    import jax
-
-    src = jax.lax.fori_loop(0, CL // G, group, src_ref[:, :])
-    src_ref[:, :] = src
+    jax.lax.fori_loop(0, nlev, level, load(0))
 
 
-_KERNELS = {}
+def level_scan_call(E: int, Vb: int, rt_id: int, cov_coef: int,
+                    B: int, NCL: int, platform: str):
+    """pallas_call for B windows of up to NCL levels in the (E, Vb) bucket:
+    f(A [B,NCL,8,Ep], M, meta [B,NCL], nlev [B]) -> (best, sc) [B,NCL,8].
 
-
-def buf_layout(E: int, NCL: int, P: int, B: int):
-    """Total bytes of the input buffer: per-window entry streams padded to
-    P entries, then int32 meta planes [NCL, B]."""
-    MPL = (E + 7) // 8
-    PB = B * P
-    return (1 + 4 + MPL) * PB + 4 * NCL * B
-
-
-def get_level_scan(E, Vb, rt_id, cov_coef, NCL, P, B):
-    """Compiled batched pallas scan for the given shape bucket.
-
-    Input is ONE uint8 byte-planar buffer (see device_dp's packer):
-      [ colav(B*P) | A planes b0..b3 (4*B*P)
-        | M planes b0..b_{MPL-1} | meta planes b0..b3 (4*NCL*B) ]
-    colav = adv << 7 | slot*6 + cell (PAD_COL marks padding; needs
-    E <= MAX_PALLAS_E); adv = level-advance bit, cumsummed per window
-    into level ids; A/M/meta as in device_dp.
-
-    Returns f(buf, l0[B]) -> (packed uint8 out, sc [NCL, 6B] int32):
-      packed = [ winners 6 x W-bit int32 planes (BPL*NCL*B,
-                 W = bitwidth(E-1), BPL = ceil(6W/8))
-                 | score-tail planes (4*B*TAILB*6) ]
-    where TAILB = min(TAIL, NCL) rows starting at clip(l0, 0, NCL-TAILB)
-    per window.  Fetch `packed` for production (one transfer); `sc` stays
-    on device unless a caller wants the full score matrix (tests)."""
+    `platform` names the route: "gpu" compiles through Triton; "cpu" runs
+    the same kernel in the Pallas interpreter (tests); anything else
+    raises."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
 
-    interpret = jax.default_backend() == "cpu"  # tests / virtual meshes
-    key = (E, Vb, rt_id, cov_coef, NCL, P, B, interpret)
-    fn = _KERNELS.get(key)
-    if fn is not None:
-        return fn
-    CL = choose_cl(E, Vb, B)
-    NC = NCL // CL
-    assert NC * CL == NCL, (NCL, CL)
-    SB = 6 * B
-    C6B = E * SB
-    NSRC = (Vb + 1) * 6
-    MPL = (E + 7) // 8
-    PB = B * P
-    TAILB = min(TAIL, NCL)
-    kern = partial(_kernel, E=E, Vb=Vb, B=B, CL=CL, rt_id=rt_id,
-                   cov_coef=cov_coef)
+    if platform == "gpu":
+        from jax.experimental.pallas import triton as plgpu
 
-    @jax.jit
-    def run(buf, l0):
-        b = buf.astype(jnp.int32)
-        colav = b[:PB].reshape(B, P)
-        col = colav & 0x7F
-        adv = colav >> 7
-        lvl = jnp.cumsum(adv, axis=1) - 1  # per-window level ids
-        entA = (b[PB:2 * PB] | (b[2 * PB:3 * PB] << 8)
-                | (b[3 * PB:4 * PB] << 16) | (b[4 * PB:5 * PB] << 24)
-                ).reshape(B, P)
-        entM = b[5 * PB:6 * PB]
-        for pb in range(1, MPL):
-            entM = entM | (b[(5 + pb) * PB:(6 + pb) * PB] << (8 * pb))
-        entM = entM.reshape(B, P)
-        mb = (5 + MPL) * PB
-        NB_ = NCL * B
-        meta = (b[mb:mb + NB_] | (b[mb + NB_:mb + 2 * NB_] << 8)
-                | (b[mb + 2 * NB_:mb + 3 * NB_] << 16)
-                | (b[mb + 3 * NB_:mb + 4 * NB_] << 24)).reshape(NCL, B)
-        w6 = jnp.arange(B, dtype=jnp.int32)[:, None] * 6
-        gcol = (col // 6) * SB + w6 + col % 6
-        idx = jnp.where(col < PAD_COL, lvl * C6B + gcol, NCL * C6B)
-        A = jnp.zeros((NCL * C6B + 1,), jnp.int32).at[idx.ravel()].set(
-            entA.ravel(), unique_indices=True)[:NCL * C6B].reshape(
-                NCL, C6B)
-        M = jnp.zeros((NCL * C6B + 1,), jnp.int32).at[idx.ravel()].set(
-            entM.ravel(), unique_indices=True)[:NCL * C6B].reshape(
-                NCL, C6B)
-        best, sc = pl.pallas_call(
-            kern,
-            grid=(NC,),
-            in_specs=[
-                pl.BlockSpec((CL, C6B), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((CL, C6B), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((CL, B), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((CL, SB), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((CL, SB), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((NCL, SB), jnp.int32),
-                jax.ShapeDtypeStruct((NCL, SB), jnp.int32),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((E, B * NSRC), jnp.int32),
-                pltpu.VMEM((G, 2 * SB), jnp.int32),
-            ],
-            interpret=interpret,
-        )(A, M, meta)
-        # ---- pack results into ONE dense byte buffer ----
-        W = (E - 1).bit_length()
-        BPL = (6 * W + 7) // 8
-        shifts = (jnp.arange(6, dtype=jnp.int32) * W)[None, None, :]
-        bp = (best.reshape(NCL, B, 6) << shifts).sum(axis=2)  # [NCL, B]
-        tails = []
-        for wb in range(B):
-            s = jnp.clip(l0[wb], 0, NCL - TAILB)
-            tails.append(jax.lax.dynamic_slice(sc, (s, wb * 6),
-                                               (TAILB, 6)))
-        sct = jnp.stack(tails)  # [B, TAILB, 6]
-        bpf = bp.ravel()
-        scf = sct.ravel()
-        packed = jnp.concatenate(
-            [((bpf >> (8 * k)) & 0xFF).astype(jnp.uint8)
-             for k in range(BPL)]
-            + [((scf >> (8 * k)) & 0xFF).astype(jnp.uint8)
-               for k in range(4)])
-        return packed, sc
+        extra = dict(backend="triton",
+                     compiler_params=plgpu.CompilerParams(
+                         num_warps=4, num_stages=1))
+        interpret = False
+    elif platform == "cpu":
+        extra = {}
+        interpret = True
+    else:
+        raise RuntimeError(
+            f"engine-2 level-scan kernel has no route for platform "
+            f"{platform!r} (gpu: Triton; cpu: interpreter)")
+    Ep = pow2(E)
+    Vbp = pow2(Vb)
+    kern = partial(_kernel, E=E, Ep=Ep, Vb=Vb, rt_id=rt_id,
+                   cov_coef=cov_coef, sync=not interpret)
+    call = pl.pallas_call(
+        kern,
+        grid=(B,),
+        out_shape=[
+            jax.ShapeDtypeStruct((B, NCL, CELLS), jnp.int32),
+            jax.ShapeDtypeStruct((B, NCL, CELLS), jnp.int32),
+            jax.ShapeDtypeStruct((B, Vbp + 1, CELLS, Ep), jnp.int32),
+            jax.ShapeDtypeStruct((B, 4, CELLS, Ep), jnp.int32),
+        ],
+        interpret=interpret,
+        name="cns_level_scan",
+        **extra,
+    )
 
-    _KERNELS[key] = run
+    def run(A, M, meta, nlev):
+        best, sc, _, _ = call(A, M, meta, nlev)
+        return best, sc
+
     return run

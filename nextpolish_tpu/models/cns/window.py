@@ -254,7 +254,7 @@ def _window_prep_native(batch: AlnBatch, tid: int,
 @dataclass
 class WindowWork:
     """Host-prepped window awaiting its DP — the unit the batched device
-    scan consumes (the window axis is the TPU batch dimension,
+    scan consumes (the window axis is the device batch dimension,
     lib/ctg_cns.c:3455-3594)."""
 
     merged: object  # TagColumns
@@ -278,12 +278,9 @@ def default_engine() -> str:
     global _AUTO_ENGINE
     if _AUTO_ENGINE:
         return _AUTO_ENGINE
-    try:
-        import jax
+    import jax
 
-        if jax.default_backend() == "cpu":
-            return "native"
-    except Exception:
+    if jax.default_backend() == "cpu":
         return "native"
     from .calib import choose_engine
 
@@ -513,9 +510,9 @@ def consensus_for_contig(batch: AlnBatch, tid: int, contig: bytes,
     # (runtime.budget — replaces nextpolish2.py's RAM-driven -p)
     from ...runtime.budget import cns_device_batch
 
-    # per-window slab cost ~ Lt levels (≈1.6/draft base) × 6E slots × two
-    # int32 words (A+M) + scan outputs
-    lvl_bytes = min(b, length) * 1152
+    # per-window slab cost ~ Lt levels (≈1.6/draft base) × the dense
+    # [8, Ep<=32] A+M int32 tiles of the device scan
+    lvl_bytes = min(b, length) * 3277
     group = cns_device_batch(lvl_bytes, len(starts))
 
     from ...runtime import trace
@@ -556,7 +553,7 @@ def consensus_for_contig(batch: AlnBatch, tid: int, contig: bytes,
     if eng == "device":
         # every prepped window goes straight to the shared batcher: groups
         # of B windows — across contigs, when `batcher` is shared — leave
-        # in one pallas launch while the host preps the next windows
+        # in one kernel launch while the host preps the next windows
         from collections import deque
 
         from .batcher import CnsBatcher

@@ -1,7 +1,10 @@
 """ctypes loader for the native host substrate (libnpt.so).
 
-Builds on demand with `make` if the shared object is missing; every entry
-point has a pure-Python fallback in io/, so `available()` gating is enough.
+Builds on demand with `make` when the shared object is missing or older
+than any of its tracked sources (the Makefile builds with -march=native,
+so a copied checkout must not reuse another machine's build); every entry
+point has a pure-Python fallback in io/, so `available()` gating is
+enough.
 """
 from __future__ import annotations
 
@@ -17,17 +20,33 @@ _LIB = None
 _TRIED = False
 
 
+def _stale() -> bool:
+    """libnpt.so is missing or older than a source it is built from."""
+    if not os.path.exists(_SO):
+        return True
+    built = os.path.getmtime(_SO)
+    srcs = [os.path.join(_DIR, f) for f in os.listdir(_DIR)
+            if f.endswith(".cpp") or f == "Makefile"]
+    return any(os.path.getmtime(f) > built for f in srcs)
+
+
 def _load():
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    if not os.path.exists(_SO):
-        try:
-            subprocess.run(["make", "-C", _DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+    if _stale():
+        import fcntl
+
+        # concurrent processes (test workers) build once, in turn
+        with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if _stale():
+                try:
+                    subprocess.run(["make", "-B", "-C", _DIR], check=True,
+                                   capture_output=True, timeout=300)
+                except (OSError, subprocess.SubprocessError):
+                    return None
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:

@@ -3,7 +3,7 @@
 // (device_dp.py densify_window semantics) in one native pass.
 //
 // The reference builds the same second-order link structure in update_msa
-// (lib/ctg_cns.c:324-365); here it feeds the TPU level-scan instead of a
+// (lib/ctg_cns.c:324-365); here it feeds the device level-scan instead of a
 // host DP.  Both numpy implementations stay as the oracle this pass is
 // tested against (tests/test_cns_native.py).
 #include <algorithm>

@@ -24,7 +24,7 @@ _INITIALIZED = False
 
 
 def _slurm_first_node(nodelist: str) -> str:
-    """First hostname of a SLURM nodelist ('a,b', 'tpu[003-004]', ...)."""
+    """First hostname of a SLURM nodelist ('a,b', 'node[003-004]', ...)."""
     head = nodelist.split(",")[0]
     if "[" in head:
         base, rng = head.split("[", 1)

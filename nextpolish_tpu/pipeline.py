@@ -442,6 +442,11 @@ class Pipeline:
                           + b"\n")
         stats = cal_n50_info(lengths, asm + ".stat")
         log.info("final assembly: %s\n%s", asm, stats)
+        dev = jax.local_devices()[0]
+        mem = dev.memory_stats()
+        if mem and "peak_bytes_in_use" in mem:
+            log.info("device peak_bytes_in_use: %d (%s)",
+                     mem["peak_bytes_in_use"], dev.device_kind)
         if nproc > 1:
             barrier("final")
         return asm

@@ -24,22 +24,21 @@ def host_available_bytes() -> int:
 
 
 def device_free_bytes() -> int:
-    """Free HBM on the default device; falls back to a v5e-sized figure
-    when the backend has no memory stats (CPU jax)."""
-    try:
-        import jax
+    """Free memory on the default device.  The CPU backend uses host
+    memory; an accelerator that reports no memory stats is an error (a
+    guessed size would mis-size every launch)."""
+    import jax
 
-        dev = jax.devices()[0]
-        stats = dev.memory_stats()
-        if stats:
-            limit = stats.get("bytes_limit") or stats.get(
-                "bytes_reservable_limit")
-            used = stats.get("bytes_in_use", 0)
-            if limit:
-                return int(limit - used)
-    except Exception:
-        pass
-    return 12 << 30
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        return host_available_bytes()
+    stats = dev.memory_stats() or {}
+    limit = stats.get("bytes_limit") or stats.get("bytes_reservable_limit")
+    if not limit:
+        raise RuntimeError(
+            f"{dev.device_kind} reports no memory limit (memory_stats: "
+            f"{stats!r})")
+    return int(limit - stats.get("bytes_in_use", 0))
 
 
 def cns_device_batch(level_bytes_per_window: int, n_windows: int,
@@ -47,7 +46,7 @@ def cns_device_batch(level_bytes_per_window: int, n_windows: int,
                      fraction: float = 0.5) -> int:
     """How many engine-2 windows fit one device launch.
 
-    level_bytes_per_window ~= Lt * 6E * 8 (the packed A+M arrays); the
+    level_bytes_per_window ~= Lt * 8 * Ep * 8 (the dense A+M slabs); the
     scan also holds its outputs (~Lt*6*5) and XLA working set, hence the
     conservative fraction."""
     free = device_free_bytes() if free_bytes is None else free_bytes

@@ -1,94 +1,47 @@
-"""Device-utilization measurement: kernel-active time, achieved FLOP/s
-and bytes/s against the chip's roofline (MFU / membw fractions).
+"""Device peaks and work counts for roofline shares.
 
 The reference's TIME channel (lib/config.c:117-130) only times host
-stages; on an accelerator the number that separates "the rig is slow"
-from "the kernel is slow" is what fraction of the chip's peak the kernel
-itself achieves.  This module provides
+stages; on an accelerator the number that separates "the host is slow"
+from "the kernel is slow" is what fraction of the device's peak a kernel
+achieves.  This module provides
 
-  * `device_peaks()` — (bf16 FLOP/s, HBM bytes/s) for the attached chip;
-  * `time_launches(launch, fetch, n)` — per-launch device seconds by
-    CHAINED-REPETITION DIFFERENCING: some dev rigs make
-    `block_until_ready` a no-op (only data fetches synchronize), so a
-    single timed launch measures mostly transfer latency.  Instead run 1
-    launch + fetch and n launches + fetch; (t_n - t_1) / (n - 1) is the
-    steady-state per-launch device time, with dispatch pipelined and the
-    fetch cancelled out.
+  * `device_peaks()` — published (FP32 FLOP/s, HBM bytes/s) for the
+    attached device, from one table keyed by `device_kind`; a device that
+    is not in the table is an error, never a default;
+  * work counts per launch (`chain_flops`, `chain_bytes`) that bench.py
+    divides by kernel time.
 
-Engines report their work volume through `runtime.trace` count buckets
-(`*.levels`, `*.launches`); bench.py combines both into
-`device_busy_frac` (kernel-active seconds / wall) and `kernel_mfu`.
+Kernel times come from host clocks around work that ends in
+`block_until_ready`.
 """
 from __future__ import annotations
 
-import time
-
-# device_kind substring -> (peak bf16 FLOP/s, peak HBM bytes/s)
-# v5 lite == v5e.  Sources: public TPU spec tables.
+# device_kind -> (FP32 FLOP/s on the CUDA cores, HBM bytes/s).  Source:
+# NVIDIA H100 Tensor Core GPU data sheet, "FP32" row (not a tensor-core
+# rate: the chain DP's f32 (max,+) ops have no matrix product).  The data
+# sheet counts a fused multiply-add as two FLOPs; max and add issue one
+# instruction each, so a (max,+) kernel's flops share tops out at 0.5.
 PEAKS = {
-    "v5 lite": (197e12, 819e9),
-    "v5e": (197e12, 819e9),
-    "v5p": (459e12, 2765e9),
-    "v6": (918e12, 1640e9),
-    "v4": (275e12, 1228e9),
-    "v3": (123e12, 900e9),
-    "v2": (46e12, 700e9),
+    "NVIDIA H100 80GB HBM3": (67e12, 3.35e12),  # H100 SXM5
+    "NVIDIA H100 PCIe": (51e12, 2.0e12),  # H100 PCIe
 }
-FALLBACK_PEAKS = (197e12, 819e9)
 
 
-def device_peaks() -> tuple[float, float, str]:
-    """(peak_flops, peak_bytes_per_s, device_kind) for device 0."""
-    try:
+def device_peaks(kind: str | None = None) -> tuple[float, float, str]:
+    """(peak_flops, peak_bytes_per_s, device_kind) for `kind`, default the
+    first device's.  Raises KeyError for a device not in PEAKS."""
+    if kind is None:
         import jax
 
         kind = jax.devices()[0].device_kind
-    except Exception:
-        return (*FALLBACK_PEAKS, "unknown")
-    low = kind.lower()
-    for sub, peaks in PEAKS.items():
-        if sub in low:
-            return (*peaks, kind)
-    return (*FALLBACK_PEAKS, kind)
-
-
-def time_launches(launch, fetch, n: int = 8, reps: int = 2) -> float:
-    """Steady-state per-launch device seconds.
-
-    `launch()` enqueues one async device program (returning its output
-    handles); `fetch(h)` forces one handle's data to the host.  Runs the
-    1-launch and n-launch chains `reps` times and differences the best
-    walls, so transfer latency and warmup cancel."""
-    t1 = tn = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fetch(launch())
-        t1 = min(t1, time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        h = None
-        for _ in range(n):
-            h = launch()
-        fetch(h)
-        tn = min(tn, time.perf_counter() - t0)
-    return max(tn - t1, 1e-9) / (n - 1)
-
-
-def cns_scan_flops(E: int, Vb: int, B: int, n_levels: int) -> float:
-    """MXU FLOPs executed by `n_levels` levels of the batched pallas
-    level scan (pallas_scan.py):  per level, the predecessor gather
-    [4E, NSB] x [NSB, C6B] and the carry transpose [4E, C6B] x [C6B, NSB];
-    per 8-level group, the two meta expanders [4G, B] x [B, C6B|NSB]."""
-    SB = 6 * B
-    C6B = E * SB
-    NSB = B * (Vb + 1) * 6
-    G = 8
-    per_level = 2 * (4 * E) * NSB * C6B * 2  # 2 matmuls, 2 FLOPs/MAC
-    per_group = 2 * (4 * G) * B * (C6B + NSB)
-    return n_levels * per_level + (n_levels / G) * per_group
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return (*PEAKS[kind], kind)
 
 
 def chain_flops(n_cells: int) -> float:
-    """VPU ops executed per task-1 chain cell (ops/tropical.py): the
+    """Vector ops executed per task-1 chain cell (ops/tropical.py): the
     (max,+) composes of the forward scan and the traceback's relation
     composes (S^3 max+add each, twice over for the two-pass blocked
     scan), plus the pointer-selection scoring (64x8 lanes, ~3 ops)."""
@@ -96,22 +49,10 @@ def chain_flops(n_cells: int) -> float:
     return n_cells * (2 * 2 * S ** 3 + 3 * 64 * 8)
 
 
-def chain_bytes(n_cells: int, E_entries: int = 0) -> float:
-    """Approximate HBM bytes for one slot-plane chain launch: the
-    transfer buffer (~8.5 B/cell at Emax=4), the [L, 64] f32 transition
-    lattice written+read, the [L, Emax, 8] masked-reduction traffic of
-    the pointer passes, and the scan state/traceback tensors."""
+def chain_bytes(n_cells: int) -> float:
+    """Approximate device-memory bytes for one slot-plane chain launch:
+    the transfer buffer (~8.5 B/cell at Emax=4), the [L, 64] f32
+    transition lattice written+read, the [L, Emax, 8] masked-reduction
+    traffic of the pointer passes, and the scan state/traceback
+    tensors."""
     return n_cells * (9 + 64 * 4 * 2 + 4 * 8 * 4 * 3 + 8 * 4 * 6)
-
-
-def cns_scan_bytes(E: int, Vb: int, B: int, n_levels: int) -> float:
-    """Approximate HBM bytes moved by `n_levels` levels: the A/M slabs
-    [n, C6B] int32 are written once (device-side scatter) and streamed
-    once by the kernel; meta likewise; best/sc outputs written once and
-    re-read once by the packing stage."""
-    SB = 6 * B
-    C6B = E * SB
-    slab = n_levels * C6B * 4
-    meta = n_levels * B * 4
-    out = n_levels * SB * 4 * 2
-    return 2 * (2 * slab + meta) + 2 * out

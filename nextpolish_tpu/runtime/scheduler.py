@@ -1,6 +1,6 @@
 """Stage scheduler with filesystem checkpointing and bounded retries.
 
-TPU-native replacement for Paralleltask (SURVEY.md §1 L5): instead of shell
+JAX-side replacement for Paralleltask (SURVEY.md §1 L5): instead of shell
 scripts submitted to a cluster, stages are Python callables executed in-
 process (device work inside is already parallel); the filesystem still holds
 the checkpoint state so re-invocation skips finished stages, matching the

@@ -39,6 +39,32 @@ def test_shared_batcher_matches_native(monkeypatch):
     assert bat.prepping == 0 and not bat.pending
 
 
+def test_batcher_round_robins_devices(monkeypatch):
+    """Window groups go to the batcher's devices in turn (one group per
+    device here), and the result does not depend on where they ran."""
+    import jax
+
+    from nextpolish_tpu.models.cns.batcher import CnsBatcher
+    from nextpolish_tpu.models.ctg_cns import ctg_cns_contig
+    from nextpolish_tpu.runtime.overlap import pipelined_map
+
+    devs = jax.devices()[:4]
+    assert len(devs) == 4
+    rng = np.random.default_rng(6)
+    contigs = [_sim_contig(rng, 600) for _ in range(4)]
+
+    monkeypatch.setenv("NPT_CNS_ENGINE", "native")
+    want = [ctg_cns_contig("ctg", d, b, "ont") for d, b in contigs]
+
+    monkeypatch.setenv("NPT_CNS_ENGINE", "device")
+    bat = CnsBatcher("ont", max_batch=1, devices=devs)
+    got = list(pipelined_map(
+        lambda db: ctg_cns_contig("ctg", db[0], db[1], "ont", batcher=bat),
+        contigs, depth=4))
+    assert got == want
+    assert [bat.launches[d] for d in devs] == [1, 1, 1, 1]
+
+
 def test_batcher_partial_flush():
     """A single producer with fewer windows than a batch must not wait
     forever — partial groups flush when every producer is blocked."""
@@ -107,3 +133,21 @@ def test_probe_window_builds():
         assert nat is not None
         assert np.array_equal(nat[0], cns.pos)
         assert np.array_equal(nat[1], cns.base)
+
+
+def test_device_probe_failure_propagates(tmp_path, monkeypatch):
+    """A device scan that raises during the probe fails choose_engine: the
+    engine choice never silently degrades to the host engine."""
+    from nextpolish_tpu.models.cns import calib
+    from nextpolish_tpu.models.cns import device_dp as dd
+
+    monkeypatch.setenv("NPT_CNS_CALIB", str(tmp_path / "calib.json"))
+    monkeypatch.setattr(calib, "PROBE_LEN", 3000)
+
+    def broken(*a, **k):
+        raise RuntimeError("device launch failed")
+
+    monkeypatch.setattr(dd, "_run_batch", broken)
+    with pytest.raises(RuntimeError, match="device launch failed"):
+        calib.choose_engine("ont")
+    assert not (tmp_path / "calib.json").exists()

@@ -1,4 +1,4 @@
-"""Device (TPU tensor-program) engine-2 link DP vs the host paths.
+"""Device engine-2 link DP (kernel and plain scan) vs the host paths.
 
 The device scan in models/cns/device_dp.py must reproduce the numpy
 EdgeTable DP (itself byte-parity-tested against the reference .so) bit for
@@ -128,15 +128,15 @@ def test_device_dp_deep_insertion_chain():
 
 
 @pytest.mark.parametrize("rt", ["ont", "clr", "rs"])
-def test_pallas_batched_windows_match(rt, monkeypatch):
-    """Several windows of different lengths lane-packed into ONE pallas
-    launch (B>1) must each equal the lax.scan result bit for bit."""
+def test_pallas_batched_windows_match(rt):
+    """Several windows of different lengths in ONE kernel launch (B>1, one
+    program per window; interpret mode on CPU) must each equal the
+    lax.scan result bit for bit."""
     from nextpolish_tpu.models.cns import device_dp as dd
 
     rng = np.random.default_rng(19)
     dws = []
-    refs = []
-    for i, Lt_ in enumerate((1500, 3000, 800)):
+    for Lt_ in (1500, 3000, 800):
         true = rand_seq(rng, Lt_)
         draft = bytes(_noisy(rng, true, 0.01, 0.01, 0.01))
         batch, _ = _make_batch(rng, true, draft, n_reads=30, err=0.05)
@@ -157,34 +157,89 @@ def test_pallas_batched_windows_match(rt, monkeypatch):
         dw = densify_window(edges, coverage, L)
         assert dw is not None
         dws.append(dw)
-        monkeypatch.setenv("NPT_CNS_PALLAS", "0")
-        (ref,) = dd._run_batch([dw], rt)
-        refs.append(ref)
-    for sc_tail in (False, True):
-        pals = dd._run_batch_pallas(dws, rt, sc_tail=sc_tail)
-        assert len(pals) == len(dws)
-        for dw, ref, pal in zip(dws, refs, pals):
-            assert np.array_equal(ref[0], pal[0])
-            if sc_tail:
-                lp = dw.level_pos
-                l0 = int(np.searchsorted(lp, lp[-1]))
-                assert np.array_equal(ref[1][l0:], pal[1][l0:])
-            else:
-                assert np.array_equal(ref[1], pal[1])
+    refs = [dd._run_batch([dw], rt, kernel=False)[0] for dw in dws]
+    pals = dd._run_batch(dws, rt, kernel=True)
+    assert len(pals) == len(dws)
+    for ref, pal in zip(refs, pals):
+        assert np.array_equal(ref[0], pal[0])
+        assert np.array_equal(ref[1], pal[1])
 
 
 @pytest.mark.parametrize("rt", ["ont", "clr", "rs", "hifi"])
-def test_pallas_scan_matches_lax_scan(ont_window, rt, monkeypatch):
-    """The pallas level-scan kernel (interpret mode on CPU) must equal the
-    chunked lax.scan path bit for bit."""
+def test_pallas_scan_matches_lax_scan(ont_window, rt):
+    """The level-scan kernel (interpret mode on CPU) must equal the
+    chunked lax.scan path bit for bit, in the wide (E, Vb) bucket too."""
     from nextpolish_tpu.models.cns import device_dp as dd
 
     edges, coverage, L = ont_window
     dw = densify_window(edges, coverage, L)
     assert dw is not None
-    monkeypatch.setenv("NPT_CNS_PALLAS", "0")
-    (ref,) = dd._run_batch([dw], rt)
-    out = dd._run_batch_pallas([dw], rt)
-    (pal,) = out
-    assert np.array_equal(ref[0], pal[0])
-    assert np.array_equal(ref[1], pal[1])
+    (ref,) = dd._run_batch([dw], rt, kernel=False)
+    wide = dict(E=dd.E_BUCKETS[-1], Vb=dd.VB_BUCKETS[-1])
+    for kw in ({}, wide):
+        (pal,) = dd._run_batch([dw], rt, kernel=True, **kw)
+        assert np.array_equal(ref[0], pal[0])
+        assert np.array_equal(ref[1], pal[1])
+
+
+@pytest.mark.parametrize("platform,kernel", [("gpu", True), ("cpu", False)])
+def test_scan_route_follows_backend(monkeypatch, platform, kernel):
+    """The GPU backend takes the Triton kernel, the CPU backend the plain
+    lax.scan."""
+    import jax
+
+    from nextpolish_tpu.models.cns import device_dp as dd
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert dd._use_kernel() is kernel
+
+
+def test_scan_route_unknown_platform_raises(monkeypatch):
+    """Any platform without a route is an error, not a fallback: both the
+    backend choice and the kernel builder refuse it."""
+    import jax
+
+    from nextpolish_tpu.models.cns import device_dp as dd
+    from nextpolish_tpu.models.cns.pallas_scan import level_scan_call
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    with pytest.raises(RuntimeError, match="unsupported platform"):
+        dd._use_kernel()
+    with pytest.raises(RuntimeError, match="no route"):
+        level_scan_call(16, 8, 0, 3, 1, 8, "rocm")
+
+
+def test_pack_group_buckets_and_padding(ont_window):
+    """pack_group picks the smallest (E, Vb) bucket that fits, pads the
+    batch to a power of two with empty windows, and re-bases
+    same-position predecessor indices past a wider ring."""
+    from nextpolish_tpu.models.cns import device_dp as dd
+
+    edges, coverage, L = ont_window
+    dw = densify_window(edges, coverage, L)
+    pk = dd.pack_group([dw] * 3)
+    assert pk.lvl.shape[0] == 4 and pk.nlev.tolist()[3] == 0
+    assert pk.E == min(e for e in dd.E_BUCKETS if e >= dw.E)
+    assert pk.NCL >= dw.n_levels and pk.NCL % dd.LEVELS_PER_STEP == 0
+    assert (pk.meta[0, dw.n_levels:] & 1).all()  # pad levels flagged
+    wide = dd.pack_group([dw], Vb=24)
+    assert wide.Vb == 24
+    shift = (wide.A[0, :len(dw.ent_b)] - pk.A[0, :len(dw.ent_b)]) >> 8
+    assert (shift[dw.ent_same] == (24 - pk.Vb) * 6).all()
+    assert (shift[~dw.ent_same] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rt", ["ont", "clr", "rs", "hifi"])
+def test_level_scan_kernel_on_gpu(ont_window, rt, gpu):
+    """The Triton-compiled kernel (two windows in one launch) equals the
+    host numpy DP on the GPU."""
+    from nextpolish_tpu.models.cns import device_dp as dd
+
+    edges, coverage, L = ont_window
+    score_np, best_np = link_dp(edges, coverage, rt)
+    dw = densify_window(edges, coverage, L)
+    for best, sc in dd._run_batch([dw] * 2, rt, kernel=True):
+        score_dev, best_dev = dd._to_edge_outputs(dw, best, sc)
+        assert np.array_equal(best_np, best_dev)
+        assert np.array_equal(score_np[best_np], score_dev[best_dev])

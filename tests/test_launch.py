@@ -32,6 +32,29 @@ def test_local_spawn_sets_protocol_env(monkeypatch, tmp_path):
                for cmd, _ in seen)
 
 
+def test_local_ranks_get_one_gpu_each(monkeypatch):
+    """Local rank r sees only the r-th visible card, so no two JAX
+    processes reserve the same GPU."""
+    seen = []
+
+    class FakeProc:
+        def wait(self):
+            return 0
+
+    monkeypatch.setattr(subprocess, "Popen",
+                        lambda cmd, env=None, **kw: seen.append(env)
+                        or FakeProc())
+    launch.launch_local("run.cfg", 2, {"PATH": "/bin"})
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in seen] == ["0", "1"]
+    seen.clear()
+    launch.launch_local("run.cfg", 2, {"CUDA_VISIBLE_DEVICES": "5,7"})
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in seen] == ["5", "7"]
+    import pytest
+
+    with pytest.raises(ValueError):
+        launch.local_rank_env(2, 3, {"CUDA_VISIBLE_DEVICES": "0,1"})
+
+
 def test_slurm_command(monkeypatch):
     calls = []
     monkeypatch.setattr(subprocess, "call",
@@ -43,7 +66,7 @@ def test_slurm_command(monkeypatch):
 
 
 def test_slurm_first_node():
-    assert _slurm_first_node("tpu-a,tpu-b") == "tpu-a"
+    assert _slurm_first_node("node-a,node-b") == "node-a"
     assert _slurm_first_node("node[003-010]") == "node003"
     assert _slurm_first_node("n[7,9]") == "n7"
 

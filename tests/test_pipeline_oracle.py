@@ -27,17 +27,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def refpipe(tmp_path_factory):
-    if not os.path.exists(os.path.join(REFBUILD, "lib", "nextpolish2.so")):
-        subprocess.run(
-            ["bash", os.path.join(REPO, "tools", "build_ref_oracle.sh")],
-            check=True, capture_output=True)
-    if not os.path.exists(os.path.join(REFBUILD, "bin", "bwa")):
-        # engines exist but the pipeline bits (bin/, seq_split, calgs.so)
-        # may not — build_ref_oracle.sh is idempotent and fills them in
-        subprocess.run(
-            ["bash", os.path.join(REPO, "tools", "build_ref_oracle.sh")],
-            check=True, capture_output=True)
-    from run_reference_pipeline import run
+    from run_reference_pipeline import TEST_DATA, run
+
+    if not os.path.isdir(TEST_DATA):
+        pytest.skip("reference source tree (and its test_data) absent")
+    if not (os.path.exists(os.path.join(REFBUILD, "lib", "nextpolish2.so"))
+            and os.path.exists(os.path.join(REFBUILD, "bin", "bwa"))):
+        # build_ref_oracle.sh is idempotent: it fills in whatever of the
+        # engines and pipeline bits (bin/, seq_split, calgs.so) is missing
+        try:
+            subprocess.run(
+                ["bash", os.path.join(REPO, "tools", "build_ref_oracle.sh")],
+                check=True, capture_output=True)
+        except subprocess.CalledProcessError:
+            pytest.skip("reference oracle could not be built")
 
     wd = str(tmp_path_factory.mktemp("refpipe"))
     run(wd, REFBUILD)

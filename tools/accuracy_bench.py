@@ -4,7 +4,7 @@
 Mirrors the reference's own validation protocols (doc/TEST1.rst,
 doc/TEST3.rst): simulate reads from a known truth genome, derive an
 error-injected draft, polish the draft with (a) this repo's pipeline
-(built-in mapper + TPU engines) and (b) the reference NextPolish stack
+(built-in mapper + device engines) and (b) the reference NextPolish stack
 (vendored bwa/minimap2/samtools + its own engines, built by
 tools/build_ref_oracle.sh into /tmp/refbuild), then count residual
 mismatches / indel bases per 100 kbp against the truth.

@@ -4,9 +4,10 @@ built-in long-read mapper and count mismatches / indel bases from the CIGAR
 
 Usage: python tools/asm_stats.py <query.fa> <target.fa>
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 

@@ -9,6 +9,7 @@ divergence cell-by-cell.  Not part of the production path.
 """
 from __future__ import annotations
 
+import os
 import sys
 
 INT64_MIN = -(2**63)
@@ -180,7 +181,7 @@ def main():
 
     import numpy as np
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from nextpolish_tpu.io.fasta import FastaIndex
     from nextpolish_tpu.models.cns.tags import (
         TagColumns, WindowAccum, read_columns, trim_read_columns)
